@@ -22,7 +22,6 @@ Example deck (TOML):
     format = "hdf5"                            # hdf5 | ascii | both
 
     [device]
-    precision = "dd"                           # dd (double-double pallas) | f64
     e_tile = 512                               # incident-energy tile size
     mesh = "auto"                              # or [n_nuclide_shards, n_e_shards]
 """
@@ -49,21 +48,22 @@ class OutputConfig:
     def validate(self) -> None:
         if self.format not in ("hdf5", "ascii", "both"):
             raise ConfigError(f"output.format must be hdf5|ascii|both, got {self.format!r}")
+        if self.format in ("hdf5", "both"):
+            try:
+                import h5py  # noqa: F401
+            except ImportError as e:
+                raise ConfigError(
+                    f"output.format = {self.format!r} needs the h5py package, which is not "
+                    'installed; install it or set output.format = "ascii"'
+                ) from e
 
 
 @dataclass
 class DeviceConfig:
-    # Production default is the dd two-body path (round 5, closing the
-    # round-4 flagship/default divergence): at the shipping e_tile the dd
-    # Pallas inner matches-or-beats f64 fetch-inclusive (1.14x at 2048,
-    # BASELINE.md round-4 row), agrees with f64 to ~1e-11 (selfcheck gates
-    # every bench), and is the same path the bench headline measures.
-    # "f64" remains one config line away.
-    precision: str = "dd"  # dd | f64
     e_tile: int = 512
     quad_points: int = 16  # Gauss-Legendre points per subinterval
     mesh: Any = "auto"  # "auto" | [n_nuclide, n_e]
-    max_devices: int = 0  # chips used for row-sharded dispatch (0 = all visible)
+    max_devices: int = 0  # devices used for row-sharded dispatch (0 = all visible)
     profile: bool = False
     # Free-gas thermal rows per temperature evaluated on-device. 0 (default)
     # evaluates EVERY thermal union row exactly — the only setting that
@@ -77,18 +77,12 @@ class DeviceConfig:
     # Sweep stall watchdog (utils/watchdog.py): abort the process with exit
     # code 4 (distinct from quarantine's 3) after this many minutes without
     # a completed dispatch span, dumping all thread stacks first. 0 = off.
-    # ON by default (round 5): the observed remote-dispatch wedge hit plain
-    # long `ndpp run` sweeps, not just the scale script, so the protection
-    # is systemic. The default floor (30 min) exceeds the worst legitimate
-    # cold compile observed on this backend (60-600 s/shape).
+    # On by default: a wedged dispatch in a long unattended sweep should end
+    # the process, not hold it forever. The 30 min floor is far above any
+    # single compile or dispatch a sweep makes.
     watchdog_minutes: float = 30.0
 
     def validate(self) -> None:
-        if self.precision not in ("f64", "dd"):
-            # the f32 preview path was REMOVED in round 4: it measured slower
-            # than both dd and f64 at every shape while costing a driver
-            # branch, bench time and test surface (round-3 verdict Weak #3)
-            raise ConfigError(f"device.precision must be f64|dd, got {self.precision!r}")
         if self.e_tile <= 0 or self.quad_points <= 0:
             raise ConfigError("device.e_tile and device.quad_points must be positive")
         if self.freegas_max_rows < 0:
@@ -122,8 +116,8 @@ class RunConfig:
     # row 1): "i/N" makes this run process only every N-th nuclide starting
     # at i (deterministic round-robin over the todo list). Each shard
     # writes its own output file; `ndpp merge` combines them. `ndpp run
-    # --workers N` orchestrates N shard subprocesses (one per chip on a
-    # multi-chip host via TPU_VISIBLE_DEVICES) and merges automatically.
+    # --workers N` orchestrates N shard subprocesses (one per card on a
+    # multi-card host via CUDA_VISIBLE_DEVICES) and merges automatically.
     shard: str = ""
 
     def shard_of(self) -> tuple[int, int]:
@@ -191,7 +185,6 @@ def _build(data: dict) -> RunConfig:
     )
     dev = data.get("device", {})
     cfg.device = DeviceConfig(
-        precision=str(dev.get("precision", cfg.device.precision)),
         e_tile=int(dev.get("e_tile", cfg.device.e_tile)),
         quad_points=int(dev.get("quad_points", cfg.device.quad_points)),
         mesh=dev.get("mesh", cfg.device.mesh),

@@ -134,10 +134,9 @@ def apply_freegas(
 
         ns = e_sub.size
         # Row cap: the scattering-law kernel's working set is tiny
-        # (~(rows x chunk*nq_g x ~20 u-panels x nq_u)); 256-row tiles
-        # measured 0.155 s/dispatch at the 257-group window on the v5e
-        # (2026-08-20). e_tile halving (OOM retry) still shrinks the tile
-        # via tile_for.
+        # (~(rows x chunk*nq_g x ~20 u-panels x nq_u)); the best cap on the
+        # H100 is not measured (ROADMAP S2). e_tile halving (OOM retry)
+        # still shrinks the tile via tile_for.
         cap = 256
         tile = rows_mod.tile_for(ns, cap, cfg.device.e_tile)
         ffg = np.zeros((ns, order + 1, gs.ng))
@@ -149,11 +148,9 @@ def apply_freegas(
         # under the panel-split outgoing machinery (group splits from the
         # GL-node Lagrange interpolant; per-row cost independent of the
         # window's group count). Agreement with the retired quadrature
-        # kernels' 12/16/16 reference: 2.4e-9 worst (nq_u=16); measured
-        # ~1000x the round-1 pointwise kernel's rate at the production
-        # 257-group window (BASELINE.md). History: the grouped kernel's
-        # Laurent closed form cancelled catastrophically on thermal-fine
-        # windows; the pointwise quadrature kernels (freegas_moments_
+        # kernels' 12/16/16 reference: 2.4e-9 worst (nq_u=16). History: the
+        # grouped kernel's Laurent closed form cancelled catastrophically
+        # on thermal-fine windows; the pointwise quadrature kernels (freegas_moments_
         # pointwise / _panelsplit) remain in ops/freegas as the
         # independent cross-validation path (test_freegas).
         #

@@ -15,7 +15,6 @@ import json
 from dataclasses import dataclass, field
 from pathlib import Path
 
-import h5py
 import numpy as np
 
 from ndpp_tpu.groups import GroupStructure
@@ -65,6 +64,8 @@ class HDF5LibraryWriter:
         config_json: str = "{}",
         resume: bool = False,
     ):
+        import h5py
+
         self.path = Path(path)
         self.path.parent.mkdir(parents=True, exist_ok=True)
         if resume and self.path.exists():
@@ -239,12 +240,22 @@ def open_writers(cfg, gs: GroupStructure):
     return writers
 
 
+_HDF5_SIGNATURE = b"\x89HDF\r\n\x1a\n"
+
+
+def is_hdf5(path: str | Path) -> bool:
+    """True when the file starts with the HDF5 signature (no h5py needed)."""
+    with open(path, "rb") as fh:
+        return fh.read(len(_HDF5_SIGNATURE)) == _HDF5_SIGNATURE
+
+
 def merge_libraries(dst: str | Path, srcs: list[str | Path]) -> int:
-    """Merge shard HDF5 libraries into one (nuclide-axis process sharding).
+    """Merge shard libraries into one (nuclide-axis process sharding).
 
     Header/group-structure/temperatures come from the first source and are
     VALIDATED identical (checksum, bounds, temperatures, order) across all
     sources; nuclide groups are copied (later sources win on duplicates).
+    Shards are all HDF5 or all ASCII; the merged file has their format.
     Returns the merged nuclide count.
     """
     srcs = [Path(s) for s in srcs]
@@ -252,6 +263,13 @@ def merge_libraries(dst: str | Path, srcs: list[str | Path]) -> int:
         raise ValueError("merge_libraries: no source libraries")
     dst = Path(dst)
     dst.parent.mkdir(parents=True, exist_ok=True)
+    kinds = {is_hdf5(s) for s in srcs}
+    if len(kinds) > 1:
+        raise ValueError("merge_libraries: shards mix HDF5 and ASCII")
+    if kinds == {False}:
+        return _merge_ascii(dst, srcs)
+    import h5py
+
     with h5py.File(dst, "w") as out:
         n = 0
         ref_meta = None
@@ -295,6 +313,48 @@ def merge_libraries(dst: str | Path, srcs: list[str | Path]) -> int:
     return n
 
 
+def _ascii_blocks(path: Path) -> tuple[list[str], dict[str, list[str]]]:
+    """(header lines, {nuclide: block lines}) of an ASCII library.
+
+    Only blocks closed by their end_nuclide marker count, and the last
+    block of a nuclide wins (the read_ascii semantics)."""
+    header: list[str] = []
+    blocks: dict[str, list[str]] = {}
+    block: list[str] | None = None
+    seen_nuclide = False
+    with open(path) as fh:
+        for line in fh:
+            if block is not None:
+                block.append(line)
+                if line.startswith("end_nuclide "):
+                    blocks[line.split()[1]] = block
+                    block = None
+            elif line.startswith("nuclide "):
+                block = [line]
+                seen_nuclide = True
+            elif not seen_nuclide and not line.startswith(("metrics ", "end_library")):
+                header.append(line)
+    return header, blocks
+
+
+def _merge_ascii(dst: Path, srcs: list[Path]) -> int:
+    """ASCII shards -> one ASCII library; headers must be identical."""
+    header, merged = _ascii_blocks(srcs[0])
+    for src in srcs[1:]:
+        h, blocks = _ascii_blocks(src)
+        if h != header:
+            raise ValueError(
+                f"merge_libraries: {src} header (groups/temps/order) differs from {srcs[0]}"
+            )
+        merged.update(blocks)
+    with open(dst, "w") as out:
+        out.writelines(header)
+        for block in merged.values():
+            out.writelines(block)
+        out.write("end_library\n")
+    return len(merged)
+
+
 def write_ascii_from_hdf5(h5_path: str | Path, ascii_path: str | Path) -> int:
     """Write the lossless ASCII twin of an HDF5 library; returns nuclide count.
 
@@ -303,6 +363,8 @@ def write_ascii_from_hdf5(h5_path: str | Path, ascii_path: str | Path) -> int:
     output format is honored by mirroring the merged file. Only complete
     nuclide groups are written (the ASCII end_nuclide marker means complete).
     """
+    import h5py
+
     with h5py.File(h5_path, "r") as f:
         cfg_json = f["config"][()]
         if isinstance(cfg_json, bytes):
@@ -436,11 +498,13 @@ def read_ascii(path: str | Path) -> tuple[dict[str, np.ndarray], dict]:
 def load_datasets(path: str | Path) -> dict[str, np.ndarray]:
     """Flat {path: float array} view of a library file, either format.
 
-    Dispatches on content (h5py.is_hdf5), not extension. String datasets
+    Dispatches on content (is_hdf5), not extension. String datasets
     (config/metrics JSON) are excluded — they are provenance, not data.
     """
     path = Path(path)
-    if h5py.is_hdf5(path):
+    if is_hdf5(path):
+        import h5py
+
         out: dict[str, np.ndarray] = {}
         with h5py.File(path, "r") as f:
 

@@ -1,13 +1,15 @@
 """Native (C++) host components, loaded via ctypes with Python fallback.
 
 The reference's runtime is entirely native Fortran (SURVEY.md section 2);
-this package holds the TPU-framework's native host equivalents. Currently:
+this package holds the framework's native host equivalents. Currently:
 
   ace_tokenizer  whitespace-float tokenization of ACE ASCII tables
                  (the host-parse hot path at library scale)
 
-The shared library is built on demand with g++ (cached next to the
-sources); set NDPP_TPU_NO_NATIVE=1 to force the numpy fallback.
+The shared library is built from ace_tokenizer.cpp with g++ on first use,
+and rebuilt whenever the source is newer than the library; it is never
+committed. A failed build logs one warning and the numpy path runs; set
+NDPP_TPU_NO_NATIVE=1 to force the numpy fallback.
 """
 
 from __future__ import annotations
@@ -20,22 +22,39 @@ from pathlib import Path
 import numpy as np
 
 _HERE = Path(__file__).parent
+_SRC = _HERE / "ace_tokenizer.cpp"
 _LIB_PATH = _HERE / "libndpp_native.so"
 _lib: ctypes.CDLL | None = None
 _tried = False
 
 
+def _warn(msg: str, *args) -> None:
+    from ndpp_tpu.utils import log as log_mod
+
+    log_mod.get().warning("native tokenizer: " + msg + "; using the numpy path", *args)
+
+
+def _stale() -> bool:
+    return not _LIB_PATH.exists() or _LIB_PATH.stat().st_mtime < _SRC.stat().st_mtime
+
+
 def _build() -> bool:
-    src = _HERE / "ace_tokenizer.cpp"
+    # build beside the target, then rename: a concurrent process never sees
+    # a half-written library
+    tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.tmp")
     try:
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-o", str(_LIB_PATH), str(src)],
+            ["g++", "-O3", "-shared", "-fPIC", "-o", str(tmp), str(_SRC)],
             check=True,
             capture_output=True,
             timeout=120,
         )
-        return _LIB_PATH.exists()
-    except Exception:
+        os.replace(tmp, _LIB_PATH)
+        return True
+    except (OSError, subprocess.SubprocessError) as e:
+        detail = getattr(e, "stderr", b"") or b""
+        _warn("build failed (%s: %s)", type(e).__name__, detail.decode(errors="replace")[:500])
+        tmp.unlink(missing_ok=True)
         return False
 
 
@@ -46,7 +65,7 @@ def get_lib() -> ctypes.CDLL | None:
     if _tried or os.environ.get("NDPP_TPU_NO_NATIVE"):
         return _lib
     _tried = True
-    if not _LIB_PATH.exists() and not _build():
+    if _stale() and not _build():
         return None
     try:
         lib = ctypes.CDLL(str(_LIB_PATH))
@@ -61,7 +80,8 @@ def get_lib() -> ctypes.CDLL | None:
         lib.ndpp_count_tokens.restype = ctypes.c_longlong
         lib.ndpp_count_tokens.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
         _lib = lib
-    except OSError:
+    except OSError as e:
+        _warn("load failed (%s)", e)
         _lib = None
     return _lib
 

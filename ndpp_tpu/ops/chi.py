@@ -71,8 +71,8 @@ def tabular_group_fractions(e_knots, pdf, bounds, clamp: bool = True):
         k - 2,
     )  # (T, G+1)
     payload = jnp.stack([e_knots[:, :-1], pdf[:, :-1], slope, prefix], axis=-1)  # (T, K-1, 4)
-    # exact one-hot f32 selection on the MXU (ops/select): an f64
-    # take_along_axis lowers to kCustom scalar gathers on XLA:TPU
+    # exact one-hot f32 selection (ops/select) in place of an f64
+    # take_along_axis
     pb = select.select_rows(payload, idx)  # (T, G+1, 4)
     h = jnp.maximum(b - pb[..., 0], 0.0)
     cum = pb[..., 3] + h * (pb[..., 1] + 0.5 * pb[..., 2] * h)  # (T, G+1)

@@ -110,10 +110,10 @@ def _inner_closed_form(lo, hi, cc, u, order: int):
     # powers y^p for p in [2 - lmax, lmax + 2]
     p_min = min(2 - lmax, 1)
     p_max = lmax + 2
-    # Floor the lower limit so the Laurent terms (1/lo)^(order-2) stay inside
-    # the f32-RANGE of TPU-emulated f64 (~3.4e38; 1/1e-15 cubed faulted the
-    # worker at order 5). Physically this drops outgoing energies below
-    # ~(floor)^2 eV — utterly negligible.
+    # Floor the lower limit so the Laurent terms (1/lo)^(order-2) stay
+    # inside f32 range (~3.4e38), which an earlier backend's emulated f64
+    # shared. Physically this drops outgoing energies below ~(floor)^2 eV —
+    # utterly negligible.
     if lmax > 2:
         lo_floor = 10.0 ** (-min(30.0 / (lmax - 2), 12.0))
     else:
@@ -316,8 +316,7 @@ def freegas_sigma_eff_ratio(e, awr, kt, nq_r: int = 8, nq_c: int = 8):
 # Pointwise-E' formulation (v2): cost per outgoing point independent of the
 # group count. The kink-panel ("grouped") kernel above inserts O(G) exact
 # breakpoints in BOTH quadrature dimensions, which is unbeatable for coarse
-# structures but scales O(G^2) in nodes and faulted the TPU worker at
-# G=361. Here the differential kernel dF_l/dE'(y') is evaluated at per-group
+# structures but scales O(G^2) in nodes, too large at G=361. Here the differential kernel dF_l/dE'(y') is evaluated at per-group
 # Gauss-Legendre points in y' = sqrt(E') (the only non-smooth E' feature,
 # the cusp at y' = v, becomes a panel edge), with a smooth (v_r, V_cm)
 # quadrature per point whose THREE closed-form v_r kinks
@@ -835,8 +834,8 @@ def _pointwise_dens(
             + cc**2 * a_ratio[:, None, None, None]
         )
         # clamp the exponent at 0: vsq >= 0 for every VALID cell, but
-        # masked/padded cells can see vsq ~ -v^2/A, and exp overflows the
-        # f32-range emulated f64 on TPU (inf * 0-mask = NaN)
+        # masked/padded cells can see vsq ~ -v^2/A, and exp may overflow
+        # (inf * 0-mask = NaN)
         wgt = (
             (vr**2)[..., None]
             * cc

@@ -68,12 +68,9 @@ def lagrange_cumulants(edges, pmid_p, phalf_p, gvals, wg, boundaries, npan: int,
     nq_ = gvals.shape[2]
     l1 = gvals.shape[3]
     # Contractions here are written as broadcast-multiply + sum, NOT
-    # einsum/dot: XLA:TPU lowers an f64 dot_general to a while-loop over
-    # [8, ...]-shaped bf16 split-product tensors (the f64-on-MXU
-    # emulation), which measured ~45 ms per continuum dispatch for a
-    # 5.6M-MAC contraction (round-5 profile) — the fused elementwise
-    # f64-emulated multiply+reduce is ~50x cheaper at these tiny
-    # contraction depths (q = 10, k = 11).
+    # einsum/dot: at these tiny contraction depths (q = 10, k = 11) a fused
+    # elementwise multiply+reduce avoids a dot_general launch; its cost
+    # against a dot on the H100 is not measured (ROADMAP S3).
     totals = phalf_p[..., None] * jnp.sum(gvals * wg[None, None, :, None], axis=2)  # (T, P_pad, L+1)
     prefix = jnp.cumsum(totals, axis=1) - totals  # exclusive
 
@@ -85,9 +82,8 @@ def lagrange_cumulants(edges, pmid_p, phalf_p, gvals, wg, boundaries, npan: int,
     pidx = jnp.clip(
         jnp.sum((le <= b[:, :, None]).astype(jnp.int32), axis=2) - 1, 0, npan - 1
     )  # (T, NB) int32
-    # ONE exact one-hot f32 MXU selection (ops/select) of the combined
-    # panel payload [mid, half, node block, prefix] — f64 take_along_axis
-    # lowers to kCustom scalar gathers on XLA:TPU (round-5 profile)
+    # ONE exact one-hot f32 selection (ops/select) of the combined panel
+    # payload [mid, half, node block, prefix]
     payload = jnp.concatenate(
         [pmid_p[:, :, None], phalf_p[:, :, None], gvals.reshape(tt, pad_p, nq_ * l1), prefix],
         axis=2,
@@ -97,15 +93,12 @@ def lagrange_cumulants(edges, pmid_p, phalf_p, gvals, wg, boundaries, npan: int,
     half_b = pay_b[:, :, 1]
     nodes_b = pay_b[:, :, 2 : 2 + nq_ * l1].reshape(tt, nb, nq_, l1)
     prefix_b = pay_b[:, :, 2 + nq_ * l1 :]  # (T, NB, L+1)
-    # floor 1e-30, NOT 1e-300: smaller flushes to zero in f32-range
-    # TPU-emulated f64 (ops/dd.py range caveat), giving 0/0 NaN
+    # floor 1e-30 keeps the divisor normal in any float range
     t_b = jnp.clip((b - mid_b) / jnp.maximum(half_b, 1e-30), -1.0, 1.0)
     acoef = jnp.asarray(lagrange_antiderivative_coeffs(nq), dtype=dtype)  # (NQ, NQ+1)
-    # powers by ITERATED MULTIPLICATION, not float `**`: XLA's f64-emulated
-    # pow on TPU routes negative bases through exp/log, returning NaN for
-    # t_b < 0 at boundaries that sit in the lower half of their panel
-    # (round-3 regression hunt: top-group NaNs on every cm-continuum
-    # nuclide; CPU f64 pow has an integer fast path and was clean)
+    # powers by ITERATED MULTIPLICATION, not float `**`: a pow that routes
+    # negative bases through exp/log returns NaN for t_b < 0 at boundaries
+    # that sit in the lower half of their panel (an earlier backend did)
     pows = [jnp.ones_like(t_b)]
     for _ in range(nq):
         pows.append(pows[-1] * t_b)

@@ -1,11 +1,11 @@
-"""Sorted-segment group reduction — the TPU-native scatter replacement.
+"""Sorted-segment group reduction — a scatter-free group collapse.
 
 Every group-collapse epilogue in this package has the same shape: per-row
 quantities attached to a SORTED ladder of panel/subinterval midpoints must
 be summed into the outgoing group containing each midpoint. The obvious
-`zeros.at[gidx].add(m)` emits a scatter HLO, and XLA:TPU serializes the
-updates (~180 ns each — measured 96% of the whole two-body moment path at
-the production shape; BASELINE.md "opt 3", scripts/profile_twobody.py).
+`zeros.at[gidx].add(m)` emits a scatter HLO, which adds in no fixed order
+(atomics on the GPU); what either costs on the H100 is not measured
+(ROADMAP S4).
 
 Because the classification values are non-decreasing along the segment
 axis, group sums are CONTIGUOUS runs: with C the running (cumulative) sum
@@ -13,8 +13,8 @@ of m and p_j the count of values below boundary j,
 
     out[g] = C[p_{g+1} - 1] - C[p_g - 1]        (C[-1] := 0)
 
-— dense compares, one cumsum, and an exact one-hot selection contracted as
-a batched matmul (MXU work, no scatter/gather HLO). Selecting exactly one
+— dense compares, one cumsum, and an exact one-hot selection (no
+scatter/gather HLO). Selecting exactly one
 lane per (row, boundary) keeps the selection EXACT in any float dtype
 (adding zeros is exact), so this is bit-for-bit a reordering of the same
 additions the scatter would do per group.
@@ -69,11 +69,11 @@ def segment_group_sum(m, values, bounds, clamp: bool):
 
 def _select_at(c, pj):
     """Exact lane selection sel[t, k, j] = c[t, k, pj[t, j] - 1] (0 where
-    pj == 0) without gather/scatter HLOs: a one-hot masked reduction the
-    TPU fuses into dense VPU work (NOT an einsum/matmul — the MXU path
-    could downcast on f32 inputs; the masked sum is exact in any dtype
-    because each (t, j) selects exactly ONE lane and adding zeros is
-    exact)."""
+    pj == 0) without gather/scatter HLOs: a one-hot masked reduction that
+    XLA fuses into dense elementwise work (NOT an einsum/matmul — a matmul
+    could run in reduced precision on f32 inputs; the masked sum is exact
+    in any dtype because each (t, j) selects exactly ONE lane and adding
+    zeros is exact)."""
     t, _, s = c.shape
     oh = (
         jax.lax.broadcasted_iota(jnp.int32, (t, pj.shape[1], s), 2)

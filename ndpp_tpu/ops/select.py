@@ -1,32 +1,29 @@
 """Exact gather-free selection: one-hot f32 matmuls over split-f64 payloads.
 
-XLA:TPU lowers `take_along_axis` on f64 operands to a kCustom scalar
-gather per emulated half; at the continuum kernel's production shape the
-two window gathers measured 80 ms of a 167 ms dispatch (round-5 profile,
-BASELINE.md). A *selection* is a linear map with 0/1 coefficients, so it
-can ride the MXU instead: split each f64 payload into three f32 pieces
-(hi/mid/lo, each exactly representable and summing to the value below
-f64 ulp), multiply each piece by the one-hot selection matrix with
-`precision=HIGHEST` (bf16x6 passes — exact for one-hot: every product is
-the piece itself or zero, and the pieces occupy disjoint bit ranges so
-f32 accumulation is exact), and reconstruct in f64. The result matches
-the gather to the last bit for every payload this framework produces
-(|x| < 2^103; verified element-exact in tests/test_continuum.py).
+A *selection* is a linear map with 0/1 coefficients, so it can be done
+as a matmul instead of a gather: split each f64 payload into three f32
+pieces (hi/mid/lo, each exactly representable and summing to the value
+below f64 ulp), multiply each piece by the one-hot selection matrix with
+the full-f32 dot algorithm (no TF32 or bf16 passes; exact for one-hot:
+every product is the piece itself or zero, and the pieces occupy
+disjoint bit ranges so f32 accumulation is exact), and reconstruct in
+f64. The result matches the gather to the last bit for every payload
+this framework produces (|x| < 2^103; verified element-exact in
+tests/test_select.py and tests/test_continuum.py).
 
-Cost: a (T, Q, K) f32 one-hot against a (T, K, C) payload is T*Q*K*C
-f32 MACs on the MXU — microseconds at the shapes here, vs milliseconds
-for the scalar gather loop, and ~1000x less arithmetic than realizing
-the same selection as an f64-emulated one-hot einsum (the round-4
-mistake this module does NOT repeat: the one-hot matmul is only a win
-when it runs in *native* f32, which selection — uniquely — permits).
+It was introduced because the first target gathered f64 slowly; the
+H100 gathers f64 natively, and whether `take_along_axis` is faster there
+is not measured yet (ROADMAP S3, D2).
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
+from jax import lax
 
-_HI = jax.lax.Precision.HIGHEST
+# Full f32 products and sums: never TF32 or bf16 passes, whatever the
+# backend's default for f32 matmuls.
+_F32 = lax.DotAlgorithmPreset.F32_F32_F32
 
 
 def split3(x):
@@ -40,13 +37,19 @@ def split3(x):
     relative residual; above, the first piece overflows — callers'
     payloads (eV-scale knots, pdfs, slopes, cumulants) sit comfortably
     inside (tests/test_select.py pins both regimes).
+
+    Each piece is rounded with reduce_precision, in f64: a round trip
+    x.astype(f32).astype(f64) is a convert pair that XLA's GPU compiler
+    may drop (it allows excess precision by default), which would zero
+    the residuals and leave only the first piece's 2^-24 accuracy.
     """
-    a = x.astype(jnp.float32)
-    r = x - a.astype(x.dtype)
-    b = r.astype(jnp.float32)
-    r = r - b.astype(x.dtype)
-    c = r.astype(jnp.float32)
-    return a, b, c
+    pieces = []
+    r = x
+    for _ in range(3):
+        p = lax.reduce_precision(r, exponent_bits=8, mantissa_bits=23)  # f32 value, f64 dtype
+        pieces.append(p.astype(jnp.float32))  # exact: p is representable
+        r = r - p
+    return tuple(pieces)
 
 
 def _onehot(idx, k: int):
@@ -65,7 +68,7 @@ def select_rows(payload, idx):
     oh = _onehot(idx, p.shape[1])  # (T, Q, K)
     out = None
     for piece in split3(p):
-        part = jnp.einsum("tqk,tkc->tqc", oh, piece, precision=_HI).astype(payload.dtype)
+        part = jnp.einsum("tqk,tkc->tqc", oh, piece, precision=_F32).astype(payload.dtype)
         out = part if out is None else out + part
     return out[..., 0] if squeeze else out
 
@@ -89,7 +92,7 @@ def select_windows(payload, j0, nsel: int):
     oh = _onehot(j0, k)  # (T, W, K)
     out = None
     for piece in split3(shifted.reshape(tt, k, nsel * c)):
-        part = jnp.einsum("twk,tkc->twc", oh, piece, precision=_HI).astype(payload.dtype)
+        part = jnp.einsum("twk,tkc->twc", oh, piece, precision=_F32).astype(payload.dtype)
         out = part if out is None else out + part
     out = out.reshape(tt, j0.shape[1], nsel, c)
     return out[..., 0] if squeeze else out

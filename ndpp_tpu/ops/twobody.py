@@ -71,12 +71,12 @@ def _interp_rows(knots, pdf, mu):
     knots/pdf: (T, K) — non-decreasing knots (duplicates encode steps).
     mu: (T, S) query points. Returns (T, S).
 
-    TPU-native formulation: instead of searchsorted + gather (dynamic
-    per-row gathers are the slowest thing XLA:TPU can do — measured ~10x
-    the cost of the whole surrounding kernel), accumulate the piecewise
+    Instead of searchsorted + a per-row gather, accumulate the piecewise
     value as a masked sum over the static knot axis: for each panel j,
-    add its affine extension where the query falls inside. Dense VPU work,
-    exactly equivalent (left panel clamps below, right panel above).
+    add its affine extension where the query falls inside. Dense
+    elementwise work, exactly equivalent (left panel clamps below, right
+    panel above). Whether a gather is faster on the H100 is not measured
+    (ROADMAP S4).
     """
     k = knots.shape[1]
     out = jnp.zeros_like(mu)
@@ -104,9 +104,7 @@ def twobody_panels(e, knots, pdf, bounds, c1, c2, awr, clamp: bool):
     """Shared prologue: exact subinterval panels for the two-body engines.
 
     Builds the sorted edge set (pdf knots ++ group-boundary mu breakpoints ++
-    graded -1 ladder) and per-subinterval affine pdf coefficients. Used by
-    both the XLA kernel below and the fused Pallas dd path
-    (ops/twobody_pallas_dd.twobody_moments_dd).
+    graded -1 ladder) and per-subinterval affine pdf coefficients.
 
     Returns (mid, half, a_s, b_s, base, slope, ecm, e_safe, ap1, valid_e).
     """
@@ -128,8 +126,7 @@ def twobody_panels(e, knots, pdf, bounds, c1, c2, awr, clamp: bool):
     # clamping the outermost boundaries are pushed to +-inf so the edge
     # groups swallow out-of-range outgoing energies. `bounds` may be the
     # shared (G+1,) table or PER-ROW (T, B+1) windows (the banded path:
-    # each row carries only the boundaries its kinematic reach can hit —
-    # round 4, device-bytes/fetch reduction).
+    # each row carries only the boundaries its kinematic reach can hit).
     if bounds.ndim == 1:
         bounds2 = jnp.broadcast_to(bounds[None, :], (e.shape[0], bounds.shape[0]))
     else:
@@ -165,10 +162,11 @@ def twobody_panels(e, knots, pdf, bounds, c1, c2, awr, clamp: bool):
 
 def twobody_scatter_ref(m, mid, half, base, slope, valid_e, bounds, clamp: bool):
     """Reference epilogue: per-row scatter-add of (T, L+1, S) subinterval
-    moments into outgoing groups -> (T, L+1, G). Semantically exact, but
-    XLA:TPU serializes the T*S scatter updates (~180 ns each — measured
-    96% of the whole two-body path at the bench shape). Kept as the
-    oracle for twobody_scatter and for non-monotone layouts."""
+    moments into outgoing groups -> (T, L+1, G). Semantically exact, and
+    independent of the segment reduction; kept as the oracle for
+    twobody_scatter (tests, selfcheck). On the GPU the adds are atomics,
+    so their order, and the last bits, vary from run to run. Its speed
+    against twobody_scatter on the H100 is not measured (ROADMAP S4)."""
     ng = bounds.shape[0] - 1
     elab_mid = base[:, None] + slope[:, None] * mid  # (T, S)
     gidx = jnp.searchsorted(bounds, elab_mid, side="right") - 1  # (T, S)
@@ -189,16 +187,56 @@ def twobody_scatter_ref(m, mid, half, base, slope, valid_e, bounds, clamp: bool)
 def twobody_scatter(m, mid, half, base, slope, valid_e, bounds, clamp: bool):
     """Shared epilogue: (T, L+1, S) subinterval moments -> (T, L+1, G).
 
-    TPU-native segment reduction: E'_lab(mid) is ascending along the
-    sorted subinterval axis (slope > 0), so group indices are
-    NON-DECREASING per row and the group sums are contiguous segments —
-    delegated to ops.segment.segment_group_sum (no scatter HLO; the
-    reference scatter-add serializes on TPU; see twobody_scatter_ref).
+    Segment reduction: E'_lab(mid) is ascending along the sorted
+    subinterval axis (slope > 0), so group indices are NON-DECREASING per
+    row and the group sums are contiguous segments — delegated to
+    ops.segment.segment_group_sum (no scatter HLO; see
+    twobody_scatter_ref for the scatter-add reference).
     """
     elab_mid = base[:, None] + slope[:, None] * mid  # (T, S)
     valid = (half[:, :] > 0.0) & valid_e[:, None]
     m = m * valid[:, None, :]
     return segment_group_sum(m, elab_mid, bounds, clamp)
+
+
+def _subinterval_moments(e, knots, pdf, bounds, c1, c2, awr, order: int, nq: int, clamp: bool):
+    """Prologue + quadrature: (T, L+1, S) subinterval moments and the panel
+    geometry the epilogue needs (m, mid, half, base, slope, valid_e)."""
+    xq, wq = gl_nodes_weights(nq)
+    xq = jnp.asarray(xq, dtype=e.dtype)
+    wq = jnp.asarray(wq, dtype=e.dtype)
+    mid, half, a_s, b_s, base, slope, ecm, e_safe, ap1, valid_e = twobody_panels(
+        e, knots, pdf, bounds, c1, c2, awr, clamp
+    )
+
+    # Layout: (T, Q, S) keeps the wide subinterval axis minor for every
+    # elementwise op, and the q-reduction is Q static adds — never
+    # materializing a (T, S, Q, L+1) tensor with a 6-wide minor axis.
+    mu_q = mid[:, None, :] + half[:, None, :] * xq[None, :, None]  # (T, Q, S)
+    pdf_q = a_s[:, None, :] + b_s[:, None, :] * mu_q
+
+    elab_q = base[:, None, None] + slope[:, None, None] * mu_q
+    inv_sqrt_elab = jax.lax.rsqrt(elab_q)
+    mu_lab = jnp.clip(
+        (mu_q * jnp.sqrt(ecm)[:, None, None] + (jnp.sqrt(e_safe) / ap1)[:, None, None])
+        * inv_sqrt_elab,
+        -1.0,
+        1.0,
+    )
+
+    weight = pdf_q * wq[None, :, None] * half[:, None, :]  # (T, Q, S)
+    # Bonnet recurrence in place; per-l reduction over the Q axis
+    p_prev = jnp.ones_like(mu_lab)
+    m_list = [jnp.sum(weight, axis=1)]  # l = 0
+    if order >= 1:
+        p_cur = mu_lab
+        m_list.append(jnp.sum(weight * p_cur, axis=1))
+        for l in range(1, order):
+            p_next = ((2 * l + 1) * mu_lab * p_cur - l * p_prev) / (l + 1)
+            p_prev, p_cur = p_cur, p_next
+            m_list.append(jnp.sum(weight * p_cur, axis=1))
+    m = jnp.stack(m_list, axis=1)  # (T, L+1, S)
+    return m, mid, half, base, slope, valid_e
 
 
 @partial(jax.jit, static_argnames=("order", "nq", "clamp"))
@@ -228,42 +266,23 @@ def twobody_moments(e, knots, pdf, bounds, c1, c2, awr, order: int, nq: int = 16
       event, of P_l(mu_lab) joint with outgoing energy in group g'.
       Rows with E below threshold are all zero.
     """
-    xq, wq = gl_nodes_weights(nq)
-    xq = jnp.asarray(xq, dtype=e.dtype)
-    wq = jnp.asarray(wq, dtype=e.dtype)
-    mid, half, a_s, b_s, base, slope, ecm, e_safe, ap1, valid_e = twobody_panels(
-        e, knots, pdf, bounds, c1, c2, awr, clamp
+    m, mid, half, base, slope, valid_e = _subinterval_moments(
+        e, knots, pdf, bounds, c1, c2, awr, order, nq, clamp
     )
-
-    # Layout: (T, Q, S) keeps the wide subinterval axis in lanes for every
-    # elementwise op, and the q-reduction is Q static lane-aligned adds —
-    # never materializing a (T, S, Q, L+1) tensor whose 6-wide minor axis
-    # would waste 20/21 of each vector register.
-    mu_q = mid[:, None, :] + half[:, None, :] * xq[None, :, None]  # (T, Q, S)
-    pdf_q = a_s[:, None, :] + b_s[:, None, :] * mu_q
-
-    elab_q = base[:, None, None] + slope[:, None, None] * mu_q
-    inv_sqrt_elab = jax.lax.rsqrt(elab_q)
-    mu_lab = jnp.clip(
-        (mu_q * jnp.sqrt(ecm)[:, None, None] + (jnp.sqrt(e_safe) / ap1)[:, None, None])
-        * inv_sqrt_elab,
-        -1.0,
-        1.0,
-    )
-
-    weight = pdf_q * wq[None, :, None] * half[:, None, :]  # (T, Q, S)
-    # Bonnet recurrence in place; per-l reduction over the Q axis
-    p_prev = jnp.ones_like(mu_lab)
-    m_list = [jnp.sum(weight, axis=1)]  # l = 0
-    if order >= 1:
-        p_cur = mu_lab
-        m_list.append(jnp.sum(weight * p_cur, axis=1))
-        for l in range(1, order):
-            p_next = ((2 * l + 1) * mu_lab * p_cur - l * p_prev) / (l + 1)
-            p_prev, p_cur = p_cur, p_next
-            m_list.append(jnp.sum(weight * p_cur, axis=1))
-    m = jnp.stack(m_list, axis=1)  # (T, L+1, S)
     return twobody_scatter(m, mid, half, base, slope, valid_e, bounds, clamp)
+
+
+@partial(jax.jit, static_argnames=("order", "nq", "clamp"))
+def twobody_moments_scatter_ref(
+    e, knots, pdf, bounds, c1, c2, awr, order: int, nq: int = 16, clamp: bool = True
+):
+    """twobody_moments with the scatter-add reference epilogue in place of
+    the segment reduction (shared (G+1,) bounds only) — the accuracy
+    gate's independent check of the production epilogue (selfcheck)."""
+    m, mid, half, base, slope, valid_e = _subinterval_moments(
+        e, knots, pdf, bounds, c1, c2, awr, order, nq, clamp
+    )
+    return twobody_scatter_ref(m, mid, half, base, slope, valid_e, bounds, clamp)
 
 
 def twobody_constants(awr: float, q_ev: float) -> tuple[float, float]:

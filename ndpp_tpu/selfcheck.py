@@ -1,30 +1,31 @@
-"""On-chip accuracy gate (round-2 verdict item 4: EVERY family, wide probes).
+"""On-device accuracy gate: every kernel family, at production widths.
 
-``ndpp selfcheck`` (CLI) and the round bench (bench.py) both run this and
-fail loudly when any family drifts past the 1e-8 accuracy bar
-(BASELINE.json:5) on the real device:
+``ndpp selfcheck`` (CLI), ``bench.py`` and ``chip_smoke.py`` run this on
+whatever backend JAX selects and fail loudly when any family drifts past
+the 1e-8 accuracy bar (BASELINE.json:5):
 
-  - two-body: the dd-Pallas path vs the XLA-f64 kernel at the FULL
-    production shape (P5, 361 groups, 2048-row tile), with a probe batch
-    that now mixes smooth, step (equiprobable-bin-like), and strongly
-    peaked pdfs, discrete-level kinematics (c1 != 0) and AWR from 0.999
-    to 240 per row (round-2 verdict Weak #4). (The f32 preview path was
-    removed in round 4.)
+  - two-body: the XLA f64 kernel at the FULL production shape (P5, 361
+    groups, 2048-row tile) against two references. (a) The same kernel
+    with the scatter-add epilogue (twobody_scatter_ref) in place of the
+    segment reduction, on a probe batch that mixes smooth, step
+    (equiprobable-bin-like) and strongly peaked pdfs, discrete-level
+    kinematics (c1 != 0) and AWR from 0.999 to 240 per row. (b) The host
+    adaptive-quadrature oracle (oracle/twobody.py) on synthetic Fe-56
+    elastic + discrete-level and H-1 elastic rows, prepared by
+    host/prep.prepare_twobody exactly as the driver prepares them.
   - free-gas: the production scattering-law kernel (freegas_moments_sab)
-    vs the structurally independent panel-split quadrature kernel at a
-    small window (both on-chip; the kernels share no density code —
-    scripts/freegas_sab_closed.py holds the host-side truth derivation).
+    vs the structurally independent panel-split quadrature kernel on the
+    production window (both on the device; the kernels share no density
+    code — scripts/freegas_sab_closed.py holds the host-side derivation).
   - continuum: the production Lagrange group split at production
     quadrature vs the boundary-edged "panels" split at HIGHER quadrature
     (16/16) — catches both split-machinery regressions and quadrature
-    insufficiency (round-2 verdict Weak #5).
+    insufficiency.
   - chi: the tabular collapse kernel vs an exact host numpy integral of
     the same piecewise-linear pdf (fully independent path).
 
-Family shapes are kept SMALL (compile ~seconds) except two-body, which
-reuses the bench-shape executable. Off-TPU the Pallas paths cannot run at
-production shape (interpret mode is prohibitively slow), so the gate
-SKIPS (reported, not silently) unless the backend is a real TPU.
+Every gate uses the two-legged metric of docs/format.md. The gate never
+skips: a family that raises counts as failed.
 """
 
 from __future__ import annotations
@@ -88,24 +89,18 @@ def production_inputs(tile: int = PROD_TILE, k: int = PROD_K, ng: int = PROD_NG)
     return jnp.asarray(e), args
 
 
-def _errpair(got, ref, floor: float = 1e-6):
-    got = np.asarray(got)
-    ref = np.asarray(ref)
-    a = np.abs(got - ref)
-    denom = np.maximum(np.abs(ref), floor)  # moments are O(1); rel below floor is noise
-    return float(a.max()), float((a / denom).max())
-
-
 def _family_gate(got, ref) -> dict:
     """The binding 1e-8 metric for row-normalized moment tensors (same
     definition as tests/test_freegas_production.py): absolute error
     <= 1e-8 on row-normalized values AND relative error <= 1e-7 among
     elements carrying >= 10% of their row's dominant moment (the looser
     relative leg absorbs the CROSS-kernel certification budget — these
-    on-chip checks compare two independent kernels, each with its own
-    ~1e-9 quadrature envelope)."""
+    checks compare two independent kernels, each with its own ~1e-9
+    quadrature envelope). Both sides must be float64."""
     got = np.asarray(got)
     ref = np.asarray(ref)
+    if got.dtype != np.float64 or ref.dtype != np.float64:
+        return {"ok": False, "error": f"dtype {got.dtype} vs {ref.dtype}, not float64"}
     a = np.abs(got - ref)
     f0 = np.abs(ref).reshape(ref.shape[0], -1).max(axis=1).reshape((-1,) + (1,) * (ref.ndim - 1))
     big = np.abs(ref) >= 0.1 * f0
@@ -118,10 +113,70 @@ def _family_gate(got, ref) -> dict:
 
 
 def _worst(gates: list[dict]) -> dict:
+    if not all("max_abs" in g for g in gates):
+        return next(g for g in gates if "max_abs" not in g)
     return {
         "max_abs": max(g["max_abs"] for g in gates),
         "max_rel_significant": max(g["max_rel_significant"] for g in gates),
         "ok": all(g["ok"] for g in gates),
+    }
+
+
+# (fixture, MT, incident energies in eV): elastic on light and medium AWR,
+# and both discrete levels of Fe-56 (thresholds 0.86 and 2.12 MeV)
+ORACLE_ROWS = (
+    ("h1", 2, (1e-1, 1e3, 1e6, 1.5e7)),
+    ("fe56", 2, (1e2, 1e4, 1e6, 1.5e7)),
+    ("fe56", 51, (1.0e6, 5e6, 1.5e7)),
+    ("fe56", 52, (2.5e6, 1e7)),
+)
+
+
+def check_twobody(tile: int, order: int, ng: int, nq: int, e0=None, args=None) -> dict:
+    """Two-body leg: the production kernel vs (a) the scatter-add epilogue
+    on the production_inputs batch and (b) the host oracle on prepared
+    fixture rows (module docstring)."""
+    import jax.numpy as jnp
+
+    from ndpp_tpu.host import unionize
+    from ndpp_tpu.host.ace import synth
+    from ndpp_tpu.host.prep import prepare_twobody
+    from ndpp_tpu.ops.twobody import twobody_moments, twobody_moments_scatter_ref
+    from ndpp_tpu.oracle.twobody import twobody_moments_oracle
+
+    if e0 is None or args is None:
+        e0, args = production_inputs(tile, ng=ng)
+    got = twobody_moments(e0, *args, order, nq)
+    ref = twobody_moments_scatter_ref(e0, *args, order, nq)
+    scatter_gate = _family_gate(got, ref)
+
+    bounds = np.asarray(args[2])
+    preps, oracle = [], []
+    nucs = {key: synth.build(key) for key in {r[0] for r in ORACLE_ROWS}}
+    for key, mt, energies in ORACLE_ROWS:
+        nuc = nucs[key]
+        rxn = nuc.elastic if mt == 2 else nuc.reactions[mt]
+        preps.append(prepare_twobody(nuc, rxn, np.asarray(energies)))
+        oracle += [twobody_moments_oracle(nuc, rxn, e, bounds, order) for e in energies]
+    k = unionize.bucket_pow2(max(p.knots.shape[1] for p in preps))
+    cat = lambda f: np.concatenate([f(p) for p in preps])  # noqa: E731
+    dev = twobody_moments(
+        jnp.asarray(cat(lambda p: p.e)),
+        jnp.asarray(cat(lambda p: unionize.pad_to(p.knots, k, axis=1))),
+        jnp.asarray(cat(lambda p: unionize.pad_to(p.pdf, k, axis=1))),
+        jnp.asarray(bounds),
+        jnp.asarray(cat(lambda p: np.full(p.e.size, p.c1))),
+        jnp.asarray(cat(lambda p: np.full(p.e.size, p.c2))),
+        jnp.asarray(cat(lambda p: np.full(p.e.size, p.awr))),
+        order,
+        nq,
+    )
+    oracle_gate = _family_gate(dev, np.stack(oracle))
+    return {
+        **_worst([scatter_gate, oracle_gate]),
+        "scatter_ref": scatter_gate,
+        "oracle": {**oracle_gate, "rows": len(oracle)},
+        "shape": {"tile": int(e0.shape[0]), "order": order, "groups": bounds.size - 1, "nq": nq},
     }
 
 
@@ -280,6 +335,15 @@ def check_chi() -> dict:
     return {**_family_gate(got, ref), "rows": rows}
 
 
+NUMERICS = (
+    "every device computation is float64; sums on the GPU are taken in a "
+    "different order than on the CPU, and with atomics in the scatter "
+    "reference, so last-bit differences from a CPU run are expected"
+)
+
+FAMILIES = ("twobody", "freegas", "continuum", "chi")
+
+
 def run(
     tile: int = PROD_TILE,
     order: int = PROD_ORDER,
@@ -287,37 +351,33 @@ def run(
     nq: int = PROD_NQ,
     e0=None,
     args=None,
-    families: bool = True,
+    families=FAMILIES,
 ) -> dict:
     """Per-family max errors on the current backend; ``ok`` is the AND of
-    every family gate (two-body dd, free-gas, continuum, chi at <= 1e-8).
-
-    ``skipped`` is set off-TPU (see module docstring).
-    """
+    every family gate run. A family that raises fails with its error."""
     import jax
 
-    from ndpp_tpu.ops.twobody import twobody_moments
-
-    out: dict = {"shape": {"tile": tile, "order": order, "groups": ng, "nq": nq}}
-    if jax.devices()[0].platform != "tpu":
-        out.update({"ok": True, "skipped": f"backend is {jax.devices()[0].platform}, not tpu"})
-        return out
-
-    from ndpp_tpu.ops.twobody_pallas_dd import twobody_moments_dd
-
-    if e0 is None or args is None:
-        e0, args = production_inputs(tile, ng=ng)
-    ref = np.asarray(twobody_moments(e0, *args, order, nq))
-
-    out["dd_max_abs"], out["dd_max_rel"] = _errpair(twobody_moments_dd(e0, *args, order, nq), ref)
-    ok = out["dd_max_rel"] <= 1e-8
-    if families:
-        for name, fn in (("freegas", check_freegas), ("continuum", check_continuum), ("chi", check_chi)):
-            try:
-                r = fn()
-            except Exception as e:  # surface, don't crash the bench
-                r = {"ok": False, "error": f"{type(e).__name__}: {e}"}
-            out[name] = r
-            ok = ok and r.get("ok", False)
-    out["ok"] = bool(ok)
+    dev = jax.devices()[0]
+    out: dict = {
+        "device": {"platform": dev.platform, "kind": dev.device_kind},
+        "numerics": NUMERICS,
+    }
+    checks = {
+        "twobody": lambda: check_twobody(tile, order, ng, nq, e0, args),
+        "freegas": check_freegas,
+        "continuum": check_continuum,
+        "chi": check_chi,
+    }
+    for name in families:
+        try:
+            r = checks[name]()
+        except Exception as e:  # noqa: BLE001 — reported as a failed family
+            r = {"ok": False, "error": f"{type(e).__name__}: {e}"}
+        out[name] = r
+    out["ok"] = not failed_families(out) and bool(families)
     return out
+
+
+def failed_families(report: dict) -> list[str]:
+    """Names of the families in a run() report whose gate failed."""
+    return [f for f in FAMILIES if f in report and not report[f].get("ok", False)]

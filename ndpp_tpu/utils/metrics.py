@@ -4,8 +4,8 @@ Key observables:
   - nuclide-group-moments/sec: the north-star throughput metric
     (BASELINE.json:2). Moment count is computed analytically
     (NE x (L+1) x G x n_temperatures), never sampled.
-  - padding efficiency: real/padded element ratio — the key
-    TPU-utilization observable for this irregular workload.
+  - padding efficiency: real/padded element ratio — how much of the
+    padded device work is real, for this irregular workload.
   - device memory high-water, per-phase wall clock.
 """
 

@@ -11,7 +11,7 @@ cProfile — then prints:
 
 Usage:
     python scripts/profile_host.py [--nuclides stress000 stress001 ...]
-        [--workdir /tmp/ndpp_scale] [--temps 293.6 600.0] [--order 5]
+        [--workdir DIR] [--temps 293.6 600.0] [--order 5]
         [--groups uniform-lethargy-361]
 """
 
@@ -22,6 +22,7 @@ import cProfile
 import io
 import json
 import pstats
+import tempfile
 import time
 from pathlib import Path
 
@@ -29,12 +30,11 @@ from pathlib import Path
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--nuclides", nargs="+", default=None)
-    ap.add_argument("--workdir", default="/tmp/ndpp_scale")
+    ap.add_argument("--workdir", default=str(Path(tempfile.gettempdir()) / "ndpp_scale"))
     ap.add_argument("--temps", type=float, nargs="+", default=[293.6, 600.0])
     ap.add_argument("--order", type=int, default=5)
     ap.add_argument("--groups", default="uniform-lethargy-361")
     ap.add_argument("--top", type=int, default=30)
-    ap.add_argument("--precision", default="f64", choices=["f64", "dd"])
     ap.add_argument("--e-tile", type=int, default=0, help="override device.e_tile (0 = default)")
     args = ap.parse_args()
 
@@ -63,7 +63,6 @@ def main() -> int:
             temperatures=list(args.temps),
         )
         cfg.output.path = str(workdir / f"profile_{tag}.h5")
-        cfg.device.precision = args.precision
         if args.e_tile:
             cfg.device.e_tile = args.e_tile
         cfg.validate()

@@ -147,7 +147,7 @@ def test_fine_structure_aggregates_to_coarse():
 def test_below_threshold_rows_are_zero_not_nan():
     """Sub-threshold incident rows through the CM engine must be exact zeros
     (regression: emax<=0 nbody normalization underflowed to inf -> NaN,
-    poisoning the library and faulting the TPU worker)."""
+    poisoning the library)."""
     nuc = synth.build("nbody")
     rxn = nuc.reactions[16]
     mom = _driver_moments(nuc, rxn, np.array([1e3, 1e6, 5e6]), G12, order=2)
@@ -229,7 +229,7 @@ def test_lagrange_group_split_matches_panels():
     """group_split="lagrange" (the production mode since round 2: group
     boundaries removed from the outer panel edges, splits via the shared
     Lagrange cumulant machinery in ops/panelsplit — outer cost independent
-    of G, measured 2.8x on the v5e at 361 groups) must agree with the
+    of G) must agree with the
     boundary-edged "panels" scheme on every law family."""
     import jax.numpy as jnp
 

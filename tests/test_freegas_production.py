@@ -80,7 +80,7 @@ def test_device_kernel_production_window(awr):
     reference's refinement test above verifies it to 1e-9 absolute (not
     further), and the device kernel's own quadrature error is bounded
     independently at <= 1.4e-9 absolute by its self-refinement (worst at
-    the A~1 deep-thermal corner; BASELINE.md round-3 row) — elements
+    the A~1 deep-thermal corner) — elements
     whose magnitude is below ~0.1 of the row norm cannot be
     cross-certified tighter than the anchors themselves. Tiny
     transfer elements are differences of panel cumulants, so per-element

@@ -69,7 +69,7 @@ def test_run_end_to_end(small_library, tmp_path):
 def test_row_sharded_run_matches_single_device(small_library, tmp_path):
     """driver.run over the 8-virtual-device mesh == single-device run.
 
-    Exercises the production multi-chip path (parallel.rows: row-sharded
+    Exercises the production multi-device path (parallel.rows: row-sharded
     device_put + SPMD-partitioned kernels, no collectives) end to end.
     """
     import h5py

@@ -1,6 +1,6 @@
 """ops.segment.segment_group_sum vs a numpy scatter-add reference.
 
-The segment reduction is the shared TPU-native epilogue of every
+The segment reduction is the shared scatter-free epilogue of every
 group-collapse kernel (twobody/continuum/freegas/chi); this pins its
 semantics — searchsorted(side='right') classification, clamp edge
 handling, +inf tail pads — against the obvious scatter implementation.

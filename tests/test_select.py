@@ -1,9 +1,8 @@
-"""ops/select: one-hot f32 MXU selection must be element-EXACT vs gather.
+"""ops/select: one-hot f32 matmul selection must be element-EXACT vs gather.
 
-The continuum/chi/panelsplit hot paths replaced f64 take_along_axis
-(kCustom scalar gathers on XLA:TPU, 48% of the round-5 continuum
-dispatch) with one-hot f32 matmuls over a 3-way split of the payload
-(ops/select.py docstring). Selection is exact only if the split
+The continuum/chi/panelsplit hot paths replace f64 take_along_axis with
+one-hot f32 matmuls over a 3-way split of the payload (ops/select.py
+docstring). Selection is exact only if the split
 reconstructs below f64 ulp AND the f32 dot is exact for 0/1
 coefficients — both are asserted here under jit, which is the form the
 kernels compile (an XLA fusion bug made an earlier formulation correct

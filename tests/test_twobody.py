@@ -137,8 +137,7 @@ def test_f32_path_runs():
 def test_segment_scatter_matches_reference_scatter():
     """The segment-reduction epilogue (cumsum + exact one-hot selection; no
     scatter HLO) vs the scatter-add reference, both clamp modes, on real
-    panel geometry. On-chip the reference serializes (96% of path time);
-    they must agree to f64 roundoff."""
+    panel geometry. They must agree to f64 roundoff."""
     import jax
 
     from ndpp_tpu.ops.legendre import gl_nodes_weights, legendre_all
